@@ -1,11 +1,12 @@
-"""fqzcomp5-tpu: a TPU-native FASTQ/FASTA compression framework.
+"""fqzcomp5-tpu: a FASTQ/FASTA compression framework with a JAX device
+engine.
 
-A from-scratch reimplementation of the capabilities of fqzcomp5
-(reference: /root/reference, a single-binary C compressor) designed
-TPU-first:
+A from-scratch reimplementation of the capabilities of fqzcomp5 (a
+single-binary C compressor):
 
-- Entropy coding (interleaved-state rANS Nx16) runs as JAX/Pallas
-  kernels with the 32 rANS states mapped onto VPU lanes.
+- Entropy coding (interleaved-state rANS Nx16) runs as JAX kernels
+  (Pallas through Triton on a GPU) with the 32 rANS states of a
+  stream on the 32 lanes of a warp.
 - Adaptive-context codecs (fqzcomp quality model, order-k sequence
   model) have a bit-exact native C++ engine for the sequential parity
   path, plus batched JAX formulations for device execution across many

@@ -48,28 +48,9 @@ _TOK3_LEVEL = {  # (m - TOK3_3) * 2 + 3
 def _device_adaptive() -> bool:
     """Opt-in: run the adaptive codecs (SEQ*/FQZ*) through the
     three-pass device decomposition (docs/DEVICE_ADAPTIVE_CODECS.md).
-    Output is byte-identical to the native engine; any device failure
-    falls back to the native path.  Shapes are bucketed (pow2 dims,
-    power-of-4 occurrence classes) so a cold process compiles each
-    bucket once (~1 min total) and stays warm via the persistent
-    cache; per-block work is then transfer/scan bound."""
+    Output is byte-identical to the native engine; device errors
+    propagate."""
     return os.environ.get("FQZ5_DEVICE_ADAPTIVE", "0") not in ("", "0")
-
-
-_device_warned = False
-
-
-def _device_fell_back(exc: BaseException) -> None:
-    """Device-adaptive failures fall back to the native codec, but
-    never silently: warn once per process so real bugs stay visible
-    (round-1 advisor finding)."""
-    global _device_warned
-    if not _device_warned:
-        _device_warned = True
-        print("WARNING: device adaptive encode failed "
-              f"({type(exc).__name__}: {exc}); falling back to the "
-              "native codec for this and further failures",
-              file=sys.stderr)
 
 
 def _device_verify() -> bool:
@@ -81,37 +62,28 @@ def _device_verify() -> bool:
 
 
 def _seq_encode(data, lens, both, slevel):
-    if _device_adaptive():
-        try:
-            from fqzcomp5_tpu.ops import backend, seq_device_encode
-            backend.ensure_compile_cache()
-            out = seq_device_encode.encode_payload(data, lens, both,
-                                                   slevel)
-            if _device_verify() and host.seq_decode(
-                    out, lens, both, slevel, len(data)) != data:
-                raise ValueError("device SEQ payload failed native "
-                                 "decode-back")
-            return out
-        except Exception as e:
-            _device_fell_back(e)
-    return host.seq_encode(data, lens, both, slevel)
+    if not _device_adaptive():
+        return host.seq_encode(data, lens, both, slevel)
+    from fqzcomp5_tpu.ops import seq_device_encode
+
+    out = seq_device_encode.encode_payload(data, lens, both, slevel)
+    if _device_verify() and host.seq_decode(
+            out, lens, both, slevel, len(data)) != data:
+        raise ValueError("device SEQ payload failed native decode-back")
+    return out
 
 
 def _fqz_compress(data, lens, flags, seq_buf, strat_n):
-    if _device_adaptive():
-        try:
-            from fqzcomp5_tpu.ops import backend, fqz_device_encode
-            backend.ensure_compile_cache()
-            out = fqz_device_encode.fqz_compress_device(
-                data, lens, flags, seq_buf, strat_n)
-            if _device_verify() and host.fqz_decompress(
-                    out, len(data), seq_buf=seq_buf) != data:
-                raise ValueError("device FQZ payload failed native "
-                                 "decode-back")
-            return out
-        except Exception as e:
-            _device_fell_back(e)
-    return host.fqz_compress(data, lens, flags, seq_buf, strat_n)
+    if not _device_adaptive():
+        return host.fqz_compress(data, lens, flags, seq_buf, strat_n)
+    from fqzcomp5_tpu.ops import fqz_device_encode
+
+    out = fqz_device_encode.fqz_compress_device(
+        data, lens, flags, seq_buf, strat_n)
+    if _device_verify() and host.fqz_decompress(
+            out, len(data), seq_buf=seq_buf) != data:
+        raise ValueError("device FQZ payload failed native decode-back")
+    return out
 
 
 def _compress_one(m: int, arg: Options, fq: FastqBatch, sec: int,

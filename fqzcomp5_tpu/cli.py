@@ -40,11 +40,12 @@ Options:
     -v            Increase verbosity
     -V            Silent mode
     -e ENGINE     Compute engine: host (native C++; the default --
-                  "auto" resolves to it) or tpu (wave-batched device
-                  rANS encode+decode for seq+qual sections).
-                  FQZ5_DEVICE_ADAPTIVE=1 additionally routes the
-                  adaptive SEQ/FQZ sections through the device
-                  pipeline (byte-identical output)
+                  "auto" resolves to it) or tpu (the device engine:
+                  wave-batched GPU walks for the seq+qual sections;
+                  refuses to run without a GPU unless JAX_PLATFORMS
+                  names cpu).  FQZ5_DEVICE_ADAPTIVE=1 additionally
+                  routes the host engine's adaptive SEQ/FQZ sections
+                  through the device pipeline (byte-identical output)
 
     -n INT        Name encoding method (0=rANS, 1=tok3, 2=tok3+LZP)
     -N INT        Name encoding strategy.
@@ -207,16 +208,22 @@ def main(argv=None) -> int:
         probe, decomp, _ = parse_args(argv)
         reading_archive = bool(decomp or probe.check_only
                                or probe.inspect_only)
+        device = probe.engine == "tpu"
     except SystemExit:
         raise
     except Exception:
-        reading_archive = False
+        reading_archive = device = False
     # corrupt/truncated archives surface as struct.error or
     # Index/Key/MemoryError from bad offsets and sizes; the reference
-    # prints ERROR: and exits 1, never a traceback.  Encode-side runs
-    # keep the narrow catch so real bugs still show a traceback.
+    # prints ERROR: and exits 1, never a traceback.  Device errors
+    # (RuntimeError, which JAX's runtime errors derive from) fail the
+    # device engine the same way: no host codec stands in for a failed
+    # device walk.  Other encode-side errors keep the narrow catch so
+    # real bugs still show a traceback.
     extra = ((struct.error, IndexError, KeyError, MemoryError)
              if reading_archive else ())
+    if device:
+        extra += (RuntimeError,)
     try:
         return _main(argv)
     except (ValueError, OSError, *extra) as e:
@@ -247,6 +254,11 @@ def _main(argv=None) -> int:
     if not files and sys.stdin.isatty():
         print(USAGE)
         return 0
+
+    if arg.engine == "tpu":
+        from fqzcomp5_tpu.ops import backend
+
+        backend.init_device()
 
     t = Timings()
     is_gz = lambda p: p is not None and p.endswith(".gz")  # noqa: E731

@@ -122,6 +122,8 @@ def _register_optional(L: ctypes.CDLL) -> None:
          [i64p, i64p, i64p, ctypes.c_int64, ctypes.c_int64,
           ctypes.c_int64, ctypes.c_int64, i64p]),
         ("fqz5_sum_i64", ctypes.c_int64, [i64p, ctypes.c_int64]),
+        ("fqz5_rc_encode_raw", ctypes.c_int64,
+         [u32p, u32p, u32p, ctypes.c_uint32, u8p, ctypes.c_uint32]),
     ]:
         try:
             fn = getattr(L, name)
@@ -244,6 +246,23 @@ def u32_buf(x) -> tuple:
         return arr, arr.ctypes.data_as(u32p), int(arr.size)
     a = array("I", x)
     return u32_buf(a)
+
+
+def rc_encode_raw(cum, freq, tot) -> bytes:
+    """Range-code a stream of (cum, freq, tot) triples with the native
+    coder (native/rc.h, no model): the reference for the device pass-3
+    walk."""
+    L = lib()
+    n = len(cum)
+    out = np.empty(n * 5 + 16, np.uint8)
+    bufs = [u32_buf(x) for x in (cum, freq, tot)]
+    rc = L.fqz5_rc_encode_raw(bufs[0][1], bufs[1][1], bufs[2][1], n,
+                              out.ctypes.data_as(
+                                  ctypes.POINTER(ctypes.c_uint8)),
+                              len(out))
+    if rc < 0:
+        raise ValueError("rc_encode_raw failed")
+    return out[:rc].tobytes()
 
 
 def rans_compress(data: bytes, order: int) -> bytes:

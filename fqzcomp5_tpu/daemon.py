@@ -47,8 +47,12 @@ waitpid, send ``{"rc"}``), so concurrent clients run genuinely in
 parallel — a transparent daemon must not serialize two simultaneous
 ``fqz5`` invocations that would otherwise each own a process.  Handler
 threads perform no imports (everything is preloaded), so the fork never
-races an import lock.  ``-e tpu`` requests work but each forked child
-pays the jax import; keep device runs in a long-lived process instead.
+races an import lock.
+
+``-e tpu`` requests are declined (``{"decline": true}``): a forked
+child per request would open one JAX process per request on the same
+card, and a JAX process reserves most of the card's memory when it
+starts.  The client then runs the job in its own process.
 """
 from __future__ import annotations
 
@@ -129,6 +133,16 @@ def _recv_request(conn):
         # req.get() in the accept loop and killed the server
         raise ValueError("request must be a JSON object")
     return req, fds
+
+
+def _device_job(req) -> bool:
+    """Does this request select the device engine (`-e tpu`)?"""
+    from fqzcomp5_tpu.cli import parse_args
+
+    try:
+        return parse_args(req.get("argv", []))[0].engine == "tpu"
+    except (Exception, SystemExit):
+        return False  # a bad command line: the child reports it
 
 
 def _send_line(conn, obj) -> None:
@@ -309,6 +323,15 @@ def serve(socket_path: str | None = None, *, quiet: bool = False,
                 conn.close()
                 stop["flag"] = True
                 continue
+            if _device_job(req):
+                try:
+                    _send_line(conn, {"decline": True})
+                except OSError:
+                    pass
+                for fd in fds:
+                    os.close(fd)
+                conn.close()
+                continue
             t = threading.Thread(target=_handle, args=(conn, req, fds),
                                  daemon=True)
             t.start()
@@ -377,8 +400,8 @@ def request(socket_path: str | None, argv, *, op: str | None = None,
             return None
     if op:
         return rep.get("ok")
-    if rep.get("stale"):
-        return None  # daemon is retiring; caller runs in-process
+    if rep.get("stale") or rep.get("decline"):
+        return None  # retiring daemon or device job: run in-process
     return rep.get("rc")
 
 

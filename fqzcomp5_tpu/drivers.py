@@ -288,7 +288,7 @@ def decode_file(in_fp: BinaryIO, writer, arg: Options, t: Timings) -> None:
 class _FastqWriter:
     """Formatter + ordered sink pair: decode workers call .format in
     parallel, the in-order drain calls .write_bytes.  Calling the
-    object directly does both (wave/TPU driver path)."""
+    object directly does both (wave driver path)."""
 
     def __init__(self, out_fp: BinaryIO, arg: Options):
         self._out = out_fp

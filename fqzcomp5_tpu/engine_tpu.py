@@ -1,9 +1,11 @@
-"""TPU rANS engine: device state-walks + host table prep/framing.
+"""Device rANS engine: device state-walks + host table prep/framing.
 
 Produces bit-identical rANS 32x16 payloads to the native/reference
 codec.  The host (C++ helpers) builds/parses frequency tables and does
 the byte-level framing; the per-symbol O(n) loop runs on the device as
-batched `lax.scan`s over (B, 32) state matrices (ops/rans_jax.py).
+batched walks over (B, 32) state matrices: the kernels of
+ops/rans_gpu.py on a GPU, the `lax.scan` references of ops/rans_jax.py
+on the CPU.
 
 Layout recap (rANS_static32x16pr.c):
 - order-0: symbol p -> lane p%32, walked 32 at a time; the <32-byte
@@ -18,7 +20,6 @@ Layout recap (rANS_static32x16pr.c):
 from __future__ import annotations
 
 import ctypes
-import os
 
 import numpy as np
 
@@ -44,9 +45,6 @@ def _lib():
         L.fqz5_rans_o1_dec_prep.restype = ctypes.c_int64
         L.fqz5_rans_o1_dec_prep.argtypes = [
             _u8p, ctypes.c_uint32, _u32p, ctypes.POINTER(ctypes.c_int)]
-        L.fqz5_rans_core_encode.restype = ctypes.c_int64
-        L.fqz5_rans_core_encode.argtypes = [
-            _u8p, ctypes.c_uint32, ctypes.c_int, _u8p, ctypes.c_uint32]
         L._prep_registered = True
     return L
 
@@ -271,7 +269,6 @@ def decode_o1_core(payload: bytes, out_sz: int) -> bytes:
 # no-op sentinel row pads ragged lengths on encode, and per-stream
 # active-step masks handle them on decode.
 
-_NOP_O0 = 256          # sentinel symbol id (order-0 tables get 257 rows)
 _NOP_O1 = 256 * 256    # sentinel flat index (order-1 tables: 65537 rows)
 
 
@@ -295,7 +292,7 @@ class _LazyO0:
     payload length (tables + 128 state bytes + 2*nwords, one int32
     download per stream); fetch(idxs) downloads only the requested
     winners' words.  Trial waves walk every candidate on device but
-    pull loser payloads over the link never."""
+    never download loser payloads."""
 
     def __init__(self, datas: list[bytes]):
         from fqzcomp5_tpu.ops import backend
@@ -390,7 +387,7 @@ def decode_o0_batch(payloads: list[bytes], out_szs: list[int],
     """Batched order-0 device decode.  With lazy=True, returns a
     zero-arg finisher instead of bytes: create several finishers under
     backend.deferred_walks() and their device walks flush as ONE fused
-    call at the first finish (round 5; see tpu_driver decode flush)."""
+    call at the first finish (see tpu_driver decode flush)."""
     L = _lib()
     B = len(payloads)
     if B == 0:
@@ -408,11 +405,19 @@ def decode_o0_batch(payloads: list[bytes], out_szs: list[int],
     t_real = np.array([sz // 32 for sz in out_szs], np.int32)
     Tmax = max(int(t_real.max()), 1)
 
-    def _finish_from(resolve):
-        syms, Rf = resolve()
+    words = np.zeros((B, max(max((len(x) - 128 + 1) // 2
+                                 for x in bodies), 1)), np.uint32)
+    R0 = np.empty((B, 32), np.uint32)
+    for b, body in enumerate(bodies):
+        R0[b], words[b, :(len(body) - 127) // 2] = _split_body(body)
+    resolve = _decode_walk(words, R0, s3s, t_real, Tmax,
+                           rans_jax.TF_SHIFT, order1=False)
+
+    def _finish():
+        syms, Rf, _ = resolve()
         out = []
         for b, sz in enumerate(out_szs):
-            full = syms[b, :sz // 32].reshape(-1).astype(np.uint8)
+            full = syms[b, :sz // 32].reshape(-1)
             rem = sz - (sz // 32) * 32
             if rem:
                 tail = (s3s[b][Rf[b, :rem] & rans_jax.MASK12] & 0xFF
@@ -421,241 +426,81 @@ def decode_o0_batch(payloads: list[bytes], out_szs: list[int],
             out.append(full[:sz].tobytes())
         return out
 
-    from fqzcomp5_tpu.ops import backend
-    _mesh1 = backend.current_mesh()
-    if backend._use_pallas() and (_mesh1 is None or _mesh1.size == 1):
-        resolve = _decode_o0_pallas_start(bodies, s3s, t_real, Tmax)
-        if lazy:
-            return lambda: _finish_from(resolve)
-        return _finish_from(resolve)
-    else:
-        # mesh installed: shard the stream rows over dp x sp (blocks /
-        # stripes are independent, results byte-identical).  All dims
-        # bucket so compiles reuse across waves.
-        Bb = backend._bucket(B, lo=1)
-        Bp = Bb + backend.pad_rows(Bb)
-        Tmax = backend._bucket(Tmax)
-        Wmax = backend._bucket(
-            max(max((len(x) - 128 + 1) // 2 for x in bodies), 1))
-        words = np.zeros((Bp, Wmax), np.uint32)
-        R0 = np.full((Bp, 32), rans_jax.RANS_L, np.uint32)
-        for b, body in enumerate(bodies):
-            R0[b] = body[:128].copy().view("<u4")
-            wb = body[128:]
-            if len(wb) & 1:
-                wb = np.concatenate([wb, np.zeros(1, np.uint8)])
-            w16 = wb.copy().view("<u2")
-            words[b, :len(w16)] = w16
-        s3p = s3s
-        trp = t_real
-        if Bp > B:
-            s3p = np.zeros((Bp, 1 << 12), np.uint32)
-            s3p[:B] = s3s
-            s3p[B:] = 1 << (rans_jax.TF_SHIFT + 8)  # degenerate: sym0, f=1
-            trp = np.zeros(Bp, np.int32)
-            trp[:B] = t_real
-        syms, Rf, _ = rans_jax.decode_scan(
-            backend.shard_rows(words, 1), backend.shard_rows(R0, 1),
-            backend.shard_rows(s3p, 1), Tmax, rans_jax.TF_SHIFT,
-            t_real=backend.shard_rows(trp))
-        syms = np.asarray(syms)[:B]
-        Rf = np.asarray(Rf)[:B]
-
-    if lazy:
-        return lambda: _finish_from(lambda: (syms, Rf))
-    return _finish_from(lambda: (syms, Rf))
+    return _finish if lazy else _finish()
 
 
-def _expand4_dev(tab):
-    """Device-side rans_pallas_dec.expand4 + transpose(1,0,2): tables
-    upload per-STREAM ((B, S) int32, 4*S bytes each) and replicate
-    across the 32 state lanes on device — 32x less table traffic than
-    uploading the host-expanded (S, B4, 128) planes."""
-    import jax.numpy as jnp
-
-    B, S = tab.shape
-    B4 = B // 4
-    x = tab.reshape(B4, 4, S)
-    x = jnp.broadcast_to(x[:, :, :, None], (B4, 4, S, 32))
-    x = jnp.moveaxis(x, 1, 2).reshape(B4, S, 128)
-    return jnp.swapaxes(x, 0, 1)          # (S, B4, 128)
+def _split_body(body: np.ndarray):
+    """A 32-way rANS body -> (initial states (32,), u16 words)."""
+    R0 = body[:128].copy().view("<u4")
+    wb = body[128:]
+    if len(wb) & 1:
+        wb = np.concatenate([wb, np.zeros(1, np.uint8)])
+    return R0, wb.copy().view("<u2")
 
 
-def _expand4_dev1(v):
-    """(B,) per-stream scalar -> (B4, 128) per-lane, on device."""
-    import jax.numpy as jnp
+def _dec_rows(words, R0, s3, t_real, *, T: int, shift: int,
+              order1: bool, interpret: bool):
+    from fqzcomp5_tpu.ops import rans_gpu
 
-    B = v.shape[0]
-    B4 = B // 4
-    x = jnp.broadcast_to(v.reshape(B4, 4)[:, :, None], (B4, 4, 32))
-    return x.reshape(B4, 128)
-
-
-def _dec_o0_run():
-    """Jitted O0 decode wrapper: widen the int16 word feed, expand
-    tables on device, run the Pallas walk, return syms as int8
-    (decoded bytes cost 1 link byte, not 4).  v5 (compact-chunk word
-    feed) is the default kernel — hardware-validated on v5e: 3.4 GB/s
-    S=64 / 4.7 GB/s S=16 vs v3's 2.6/3.2 (tools/tpu_validate.py,
-    round 2); FQZ5_DEC_V3=1 falls back to the v3 aligned-window
-    kernel."""
-    global _DEC_O0_RUN
-    if _DEC_O0_RUN is not None:
-        return _DEC_O0_RUN
-    import functools
-
-    import jax
-    import jax.numpy as jnp
-
-    @functools.partial(jax.jit,
-                       static_argnames=("T", "shift", "S", "v3"))
-    def run(w16, tab, f0, R0p, treal, *, T, shift, S, v3):
-        from fqzcomp5_tpu.ops import rans_pallas_dec as rpd
-
-        w = w16.astype(jnp.int32) & 0xFFFF
-        cexp = _expand4_dev(tab)
-        f0exp = _expand4_dev1(f0)
-        texp = _expand4_dev1(treal)
-        fn = rpd.decode_walk4v3 if v3 else rpd.decode_walk4v5
-        syms, Rf = fn(w, cexp, f0exp, R0p, texp, T=T, shift=shift,
-                      S=S)
-        return syms.astype(jnp.int8), Rf
-
-    _DEC_O0_RUN = run
-    return run
+    syms, Rf, ptr = rans_gpu.decode_walk(
+        words, R0, s3, t_real, T=T, shift=shift, order1=order1,
+        interpret=interpret)
+    return syms.astype(np.uint8), Rf, ptr
 
 
-def _dec_o1_run():
-    global _DEC_O1_RUN
-    if _DEC_O1_RUN is not None:
-        return _DEC_O1_RUN
-    import functools
+def _decode_walk(words, R0, s3, t_real, T: int, shift: int,
+                 order1: bool):
+    """Batched decode walk of B streams: (B, W) u16 words, (B, 32)
+    states, (B, S) s3 LUTs, (B,) step counts.  Rows, steps and words
+    pad to power-of-two buckets (pad rows: degenerate tables, zero
+    steps) so waves reuse compiled shapes.  The kernel path queues
+    through backend.defer (fusable with sibling batches).  Returns a
+    resolver -> (syms (B, T, 32) u8, final states (B, 32), final word
+    cursors (B,))."""
+    from fqzcomp5_tpu.ops import backend, devtimer
 
-    import jax
-    import jax.numpy as jnp
+    B, W = words.shape
+    Bp = backend._bucket(B, lo=1)
+    Bp += backend.pad_rows(Bp)
+    Tb = backend._bucket(T)
+    wp = np.zeros((Bp, backend._bucket(W)), np.uint32)
+    wp[:B, :W] = words
+    R0p = np.full((Bp, 32), rans_jax.RANS_L, np.uint32)
+    R0p[:B] = R0
+    s3p = np.empty((Bp, s3.shape[1]), np.uint32)
+    s3p[:B] = s3
+    s3p[B:] = 1 << (shift + 8)   # degenerate: sym 0, f=1
+    trp = np.zeros(Bp, np.int32)
+    trp[:B] = t_real
+    if backend.use_kernel():
+        run = backend.bound(_dec_rows, T=Tb, shift=shift, order1=order1,
+                            interpret=backend.INTERPRET)
+        dev = [devtimer.put(x) for x in (wp, R0p, s3p, trp)]
+        d = backend.defer(lambda: (backend.row_call(run, *dev), None))
 
-    @functools.partial(jax.jit, static_argnames=(
-        "T", "shift", "A", "A1", "last0", "v3"))
-    def run(w16, packed, R0p, treal, *, T, shift, A, A1, last0, v3):
-        from fqzcomp5_tpu.ops import rans_pallas_dec as rpd
-
-        w = w16.astype(jnp.int32) & 0xFFFF
-        cexp = _expand4_dev(packed)
-        texp = _expand4_dev1(treal)
-        fn = rpd.decode_walk4v3_o1 if v3 else rpd.decode_walk4v5_o1
-        syms, Rf, cur = fn(w, cexp, R0p, texp, T=T, shift=shift,
-                           A=A, A1=A1, last0=last0)
-        return syms.astype(jnp.int8), Rf, cur
-
-    _DEC_O1_RUN = run
-    return run
-
-
-_DEC_O0_RUN = None
-_DEC_O1_RUN = None
-
-
-def _decode_o0_pallas_start(bodies, s3s, t_real, Tmax):
-    """Stage the Pallas decode walk: preps + uploads now, the walk
-    dispatch queued via backend.defer (fusable with sibling decode
-    batches), downloads + unpack at the returned resolver.  The
-    resolver returns (syms (B,T,32), Rf (B,32)) matching decode_scan's
-    conventions."""
-    import jax.numpy as jnp
-
-    from fqzcomp5_tpu.ops import rans_pallas_dec as rpd
-
-    from fqzcomp5_tpu.ops import backend as _bk
-
-    _bk.ensure_compile_cache()
-    B = len(bodies)
-    pad = _bk._bucket(B, lo=rpd.S_SLOTS) - B   # shape-bucketed streams
-    Tb = _bk._bucket(Tmax)
-    # recover per-symbol freqs from the s3 LUT (slot -> f<<20|bias<<8|sym)
-    freqs = np.zeros((B + pad, 256), np.uint32)
-    for b in range(B):
-        syms_lut = (s3s[b] & 0xFF).astype(np.int64)
-        f = s3s[b] >> 20
-        freqs[b][syms_lut] = f
-        if not f.any():
-            # single-symbol stream: freq 4096<<20 wraps to 0 in the
-            # u32 LUT; the slot count is the truth (the scan path is
-            # immune because every slot still maps to the right sym)
-            freqs[b][syms_lut[0]] = 1 << rans_jax.TF_SHIFT
-    freqs[B:, 0] = 1 << rans_jax.TF_SHIFT  # pad streams: degenerate
-    Wmax128 = max(max((len(x) - 128 + 1) // 2 for x in bodies)
-                  // 128 + 4, 4)
-    words = np.zeros((B + pad, Wmax128, 128), np.int32)
-    R0 = np.zeros((B + pad, 32), np.int32)
-    R0[B:] = rpd.RANS_L
-    treal = np.zeros(B + pad, np.int32)
-    treal[:B] = t_real
-    for b, body in enumerate(bodies):
-        R0[b] = body[:128].copy().view("<u4").astype(np.int32)
-        wb = body[128:]
-        if len(wb) & 1:
-            wb = np.concatenate([wb, np.zeros(1, np.uint8)])
-        w16 = wb.copy().view("<u2").astype(np.int32)
-        flat = np.zeros(Wmax128 * 128, np.int32)
-        flat[:len(w16)] = w16
-        words[b] = flat.reshape(Wmax128, 128)
-    # alphabet bucket: the compare loop costs O(S) per step — at
-    # rows=64 the walk is op-bound, so every spare boundary is ~0.4%
-    # of the step (docs/ROOFLINE.md).  Round 5: buckets refine from
-    # {16,32,64} to multiples of 8 (qual alphabets are ~40-46; the
-    # 64-bucket wasted 28% of the compare loop on them).  Each bucket
-    # compiles once ever (persistent cache).
-    max_sym = int(np.max(np.nonzero(freqs[:B].any(0))[0], initial=0))
-    S = 256 if max_sym >= 64 else max(16, (max_sym + 8) & ~7)
-    if S <= 64:
-        tab = rpd.build_dec_tables_p(freqs, rans_jax.TF_SHIFT, S)
-    else:
-        tab = rpd.build_dec_tables(freqs, rans_jax.TF_SHIFT, S)
-    R0p = R0.reshape((B + pad) // rpd.S_SLOTS, 128).astype(np.int32)
-    from fqzcomp5_tpu.ops import devtimer
-
-    # per-stream tables/counts upload; lane replication + int8 syms
-    # squeeze happen inside the jitted wrapper (_dec_o0_run)
-    w_d = devtimer.put(words.astype(np.uint16).view(np.int16))
-    tab_d = devtimer.put(tab)
-    f0_d = devtimer.put(freqs[:, 0].astype(np.int32))
-    R0_d = devtimer.put(R0p)
-    tr_d = devtimer.put(treal)
-    d = _bk.defer(lambda: (_dec_o0_run()(
-        w_d, tab_d, f0_d, R0_d, tr_d, T=Tb,
-        shift=rans_jax.TF_SHIFT, S=S,
-        v3=bool(os.environ.get("FQZ5_DEC_V3"))), None))
-
-    def _resolve():
-        syms_d, Rf_d = _bk._resolve(d)
-        syms = devtimer.get(syms_d[:Tmax]).view(np.uint8)
-        Rf4 = devtimer.get(Rf_d)                       # (B4, 128)
-        out_syms = np.empty((B, Tmax, 32), np.uint8)
-        Rf_out = np.empty((B, 32), np.uint32)
-        for b in range(B):
-            sl = slice((b % 4) * 32, (b % 4) * 32 + 32)
-            out_syms[b] = syms[:, b // 4, sl]
-            Rf_out[b] = Rf4[b // 4, sl].astype(np.uint32)
-        return out_syms, Rf_out
-
-    return _resolve
+        def resolve():
+            syms, Rf, ptr = backend._resolve(d)
+            return (devtimer.get(syms[:B, :T]), devtimer.get(Rf[:B]),
+                    devtimer.get(ptr[:B]))
+        return resolve
+    scan = rans_jax.decode_scan_o1 if order1 else rans_jax.decode_scan
+    syms, Rf, ptr = scan(
+        backend.shard_rows(wp, 1), backend.shard_rows(R0p, 1),
+        backend.shard_rows(s3p, 1), Tb, shift,
+        t_real=backend.shard_rows(trp))
+    res = (np.asarray(syms)[:B, :T], np.asarray(Rf)[:B],
+           np.asarray(ptr)[:B])
+    return lambda: res
 
 
 class _LazyO1:
     """Deferred encode_o1_batch (see _LazyO0): sizes without loser
-    downloads.  Streams are grouped by frequency shift (10 vs 12);
-    high-entropy streams (byte alphabet A with A*A above the device
-    dict budget, e.g. PACK'd bytes) take the native host encoder — the
-    device path would need a dense 65537-entry plane costing 16 link
-    bytes per input byte, while the C encoder does them in
-    milliseconds and emits the identical wire format.  Host-native
-    payloads are held directly (their fetch is free)."""
+    downloads.  Streams are grouped by frequency shift (10 vs 12)."""
 
     def __init__(self, datas: list[bytes]):
         B = len(datas)
+        self._n = B
         self._sizes: list[int] | None = None
-        self._direct_sizes: list[int] = [0] * B
-        self._direct: dict[int, bytes] = {}
         # per shift group: (idxs, LazyFlat, {i: head}, {i: tail})
         self._groups: list[tuple] = []
         if B == 0:
@@ -667,7 +512,7 @@ class _LazyO1:
     def sizes(self) -> list[int]:
         """Lazy per-stream framed lengths (see _LazyO0.sizes)."""
         if self._sizes is None:
-            sz = list(self._direct_sizes)
+            sz = [0] * self._n
             for idxs, lz, heads, tailbs in self._groups:
                 nw = lz.nwords()
                 for g, i in enumerate(idxs):
@@ -677,36 +522,13 @@ class _LazyO1:
         return self._sizes
 
     def _build(self, datas: list[bytes]) -> None:
-        from fqzcomp5_tpu.ops import backend
-        from fqzcomp5_tpu.ops.backend import _DICT_MAX
-
-        device_idx = []
-        for i, d in enumerate(datas):
-            arr = np.frombuffer(d, np.uint8)
-            A = int((np.bincount(arr, minlength=256) > 0).sum()
-                    ) if len(arr) else 0
-            if backend._use_pallas() and A * A > _DICT_MAX:
-                L = _lib()
-                darr = np.frombuffer(d, np.uint8)
-                cap = len(d) + (len(d) >> 1) + (1 << 16)
-                buf = np.empty(cap, np.uint8)
-                rc = L.fqz5_rans_core_encode(_ptr(darr), len(d), 1,
-                                             _ptr(buf), cap)
-                if rc < 0:
-                    raise ValueError("native o1 core encode failed")
-                self._direct[i] = buf[:rc].tobytes()
-                self._direct_sizes[i] = rc
-            else:
-                device_idx.append(i)
-        preps = {i: o1_prep(datas[i]) for i in device_idx}
+        preps = [o1_prep(d) for d in datas]
         for group_shift in (10, 12):
-            self._build_group(datas, device_idx, preps, group_shift)
+            self._build_group(datas, preps, group_shift)
 
-    def _build_group(self, datas, device_idx, preps,
-                     group_shift) -> None:
+    def _build_group(self, datas, preps, group_shift) -> None:
         from fqzcomp5_tpu.ops import backend
-        idxs = [i for i in device_idx
-                if preps[i][2] == group_shift]
+        idxs = [i for i, p in enumerate(preps) if p[2] == group_shift]
         if not idxs:
             return
         R0s = []
@@ -780,9 +602,7 @@ class _LazyO1:
             Tmax = max(Tmax, isz)
 
         G = len(idxs)
-        # pad rows need the sentinel (the dict remap maps it to the
-        # per-stream nop slot) but only the PAD region — np.full over
-        # the whole plane doubled the fill traffic
+        # only the PAD region needs the sentinel
         flat = np.empty((G, Tmax, 32), np.int32)
         for g, i in enumerate(idxs):
             arr = np.frombuffer(datas[i], np.uint8)
@@ -805,7 +625,7 @@ class _LazyO1:
 
     def prefetch(self, want) -> None:
         """Queue winner gathers across shift groups (LazyFlat
-        prefetch semantics; direct host payloads need none)."""
+        prefetch semantics)."""
         for idxs, lz, heads, tailbs in self._groups:
             gpos = {i: g for g, i in enumerate(idxs)}
             sub = [gpos[i] for i in want if i in gpos]
@@ -813,7 +633,7 @@ class _LazyO1:
                 lz.prefetch(sub)
 
     def fetch(self, want) -> dict[int, bytes]:
-        out = {i: self._direct[i] for i in want if i in self._direct}
+        out = {}
         for idxs, lz, heads, tailbs in self._groups:
             gpos = {i: g for g, i in enumerate(idxs)}
             sub = [i for i in want if i in gpos]
@@ -826,9 +646,7 @@ class _LazyO1:
         return out
 
     def fetch_all(self) -> list[bytes]:
-        out = [b""] * len(self.sizes)
-        for i, p in self._direct.items():
-            out[i] = p
+        out = [b""] * self._n
         for idxs, lz, heads, tailbs in self._groups:
             Rf, words, mask = lz.fetch_all()
             for g, i in enumerate(idxs):
@@ -870,13 +688,12 @@ def decode_o1_batch(payloads: list[bytes], out_szs: list[int],
         parsed.append((shift_c.value, s3[:256 << shift_c.value],
                        arr[used:]))
 
-    group_fins = []   # (group_shift, idxs, words, s3s, resolver)
+    group_fins = []   # (group_shift, idxs, words, s3s, tot, resolver)
     for group_shift in (10, 12):
         idxs = [i for i, p in enumerate(parsed) if p[0] == group_shift]
         if not idxs:
             continue
         G = len(idxs)
-        tot = 1 << group_shift
         s3s = np.stack([parsed[i][1] for i in idxs])
         Wmax = max(max((len(parsed[i][2]) - 128 + 1) // 2
                        for i in idxs), 1)
@@ -884,52 +701,13 @@ def decode_o1_batch(payloads: list[bytes], out_szs: list[int],
         R0 = np.empty((G, 32), np.uint32)
         for g, i in enumerate(idxs):
             body = parsed[i][2]
-            R0[g] = body[:128].copy().view("<u4")
-            wb = body[128:]
-            if len(wb) & 1:
-                wb = np.concatenate([wb, np.zeros(1, np.uint8)])
-            w16 = wb.copy().view("<u2")
-            words[g, :len(w16)] = w16
+            R0[g], words[g, :(len(body) - 127) // 2] = _split_body(body)
         t_real = np.array([out_szs[i] // 32 for i in idxs], np.int32)
-        Tmax = max(int(t_real.max()), 1)
-
-        from fqzcomp5_tpu.ops import backend
-        resolver = None
-        _mesh1 = backend.current_mesh()
-        if backend._use_pallas() and (_mesh1 is None
-                                      or _mesh1.size == 1):
-            resolver = _decode_o1_pallas_group_start(
-                words, R0, s3s, t_real, Tmax, group_shift)
-        if resolver is None:
-            # mesh installed: shard stream rows over dp x sp (pads
-            # with degenerate streams, results byte-identical).  Dims
-            # bucket so compiles reuse across waves.
-            Gb = backend._bucket(G, lo=1)
-            Gp2 = Gb + backend.pad_rows(Gb)
-            Tb2 = backend._bucket(Tmax)
-            Wb2 = backend._bucket(words.shape[1])
-            wordsp, R0p_, s3sp, trp = words, R0, s3s, t_real
-            if Gp2 > G or Wb2 > words.shape[1]:
-                wordsp = np.zeros((Gp2, Wb2), np.uint32)
-                wordsp[:G, :words.shape[1]] = words
-                R0p_ = np.full((Gp2, 32), rans_jax.RANS_L, np.uint32)
-                R0p_[:G] = R0
-                s3sp = np.zeros((Gp2, s3s.shape[1]), np.uint32)
-                s3sp[:G] = s3s
-                s3sp[G:] = 1 << (group_shift + 8)  # sym0, f=1
-                trp = np.zeros(Gp2, np.int32)
-                trp[:G] = t_real
-            syms0, Rf0, ptrf0 = rans_jax.decode_scan_o1(
-                backend.shard_rows(wordsp, 1),
-                backend.shard_rows(R0p_, 1),
-                backend.shard_rows(s3sp, 1), Tb2, group_shift,
-                t_real=backend.shard_rows(trp))
-            syms0 = np.asarray(syms0)[:G]
-            Rf0 = np.asarray(Rf0)[:G]
-            ptrf0 = np.asarray(ptrf0)[:G]
-            resolver = (lambda s=syms0, r=Rf0, p=ptrf0: (s, r, p))
-        group_fins.append((group_shift, idxs, words, s3s, tot,
-                           resolver))
+        resolver = _decode_walk(words, R0, s3s, t_real,
+                                max(int(t_real.max()), 1), group_shift,
+                                order1=True)
+        group_fins.append((group_shift, idxs, words, s3s,
+                           1 << group_shift, resolver))
 
     def _finish():
         for group_shift, idxs, words, s3s, tot, resolver in group_fins:
@@ -965,95 +743,3 @@ def decode_o1_batch(payloads: list[bytes], out_szs: list[int],
     if lazy:
         return _finish
     return _finish()
-
-
-def _decode_o1_pallas_group_start(words, R0, s3s, t_real, Tmax,
-                                  shift):
-    """Stage the Pallas order-1 decode for one shift group: preps +
-    uploads now, walk dispatch queued via backend.defer.  Returns a
-    resolver yielding (syms (G,T,32) bytes, Rf (G,32), ptrf (G,)) like
-    decode_scan_o1, or None when the alphabet exceeds the 64-symbol
-    bucket (caller takes the scan path)."""
-    import jax.numpy as jnp
-
-    from fqzcomp5_tpu.ops import rans_pallas_dec as rpd
-
-    from fqzcomp5_tpu.ops import backend as _bk
-
-    _bk.ensure_compile_cache()
-    G = len(words)
-    Tb = _bk._bucket(Tmax)
-    tot = 1 << shift
-    # recover (G, 256, 256) context freq tables from the s3 LUTs
-    s3m = s3s.reshape(G, 256, tot)
-    sym_lut = (s3m & 0xFF).astype(np.int64)
-    f_lut = (s3m >> (shift + 8)).astype(np.uint32)
-    freqs = np.zeros((G, 256, 256), np.uint32)
-    gi = np.arange(G)[:, None, None]
-    ci = np.arange(256)[None, :, None]
-    freqs[gi, ci, sym_lut] = f_lut
-    # single-symbol contexts: freq (1<<shift) << (shift+8) wraps to 0
-    # in the u32 LUT (shift 12); restore it — every slot of such a
-    # context maps to one symbol, so the row is constant and f_lut all
-    # zero.  USED single-symbol contexts must decode that symbol; for
-    # never-reached contexts the repaired degenerate table is inert.
-    mono = (sym_lut == sym_lut[:, :, :1]).all(axis=2)
-    allz = ~f_lut.any(axis=2)
-    g_ix, c_ix = np.nonzero(mono & allz)
-    freqs[g_ix, c_ix, sym_lut[g_ix, c_ix, 0]] = tot
-
-    packed, alphabet, A, A1, last0 = rpd.build_o1_dense_tables(
-        freqs, shift)
-    if A == 0 or A > 64:
-        return None
-
-    pad = _bk._bucket(G, lo=rpd.S_SLOTS) - G
-    Gp = G + pad
-    if pad:
-        packed = np.concatenate(
-            [packed, np.zeros((pad, packed.shape[1]), np.int32)])
-        # pad streams: degenerate table (sym0 f=tot in every ctx)
-        for ci2 in range(A1):
-            packed[G:, ci2 * (A + 1)] = tot << 14
-            packed[G:, ci2 * (A + 1) + 1:(ci2 + 1) * (A + 1)] = tot
-    Wmax128 = words.shape[1] // 128 + 4
-    words128 = np.zeros((Gp, Wmax128, 128), np.int32)
-    for g in range(G):
-        flat = np.zeros(Wmax128 * 128, np.int32)
-        flat[:words.shape[1]] = words[g]
-        words128[g] = flat.reshape(Wmax128, 128)
-    R0p = np.full((Gp, 32), rpd.RANS_L, np.int32)
-    R0p[:G] = R0.astype(np.int32)
-    treal = np.zeros(Gp, np.int32)
-    treal[:G] = t_real
-
-    R0r = R0p.reshape(Gp // rpd.S_SLOTS, 128)
-    from fqzcomp5_tpu.ops import devtimer
-
-    # per-stream packed tables up (4*A1*(A+1) B/stream, not the
-    # lane-replicated 128x plane); syms come back as int8 indices
-    wd = devtimer.put(words128.astype(np.uint16).view(np.int16))
-    cd = devtimer.put(packed)
-    rd = devtimer.put(R0r)
-    td = devtimer.put(treal)
-    d = _bk.defer(lambda: (_dec_o1_run()(
-        wd, cd, rd, td, T=Tb, shift=shift, A=A, A1=A1,
-        last0=last0, v3=bool(os.environ.get("FQZ5_DEC_V3"))), None))
-
-    def _resolve():
-        syms_d, Rf_d, cur_d = _bk._resolve(d)
-        syms = devtimer.get(syms_d[:Tmax])  # (T,G4,128) int8 indices
-        Rf4 = devtimer.get(Rf_d)
-        cur4 = devtimer.get(cur_d)
-        lut = alphabet.astype(np.uint8)
-        out_syms = np.empty((G, Tmax, 32), np.uint8)
-        Rf_out = np.empty((G, 32), np.uint32)
-        ptrf = np.empty(G, np.int32)
-        for g in range(G):
-            sl = slice((g % 4) * 32, (g % 4) * 32 + 32)
-            out_syms[g] = lut[syms[:, g // 4, sl]]
-            Rf_out[g] = Rf4[g // 4, sl].astype(np.uint32)
-            ptrf[g] = cur4[g // 4, (g % 4) * 32]
-        return out_syms, Rf_out, ptrf
-
-    return _resolve

@@ -22,15 +22,14 @@ evolve_grouped batch across ALL jobs:
   N128  AdaptiveModel<=128  fqz qual / sel / dup models
   W256  AdaptiveModel<256>  fqz length-byte + seq run/literal models
 
-Pass 3 stacks every job's encode-event triples into (B, T) planes
-(pow2-bucketed by length) and walks them in chunked device calls,
-carrying the coder state across chunks so arbitrarily long sections
-stream through bounded device memory.  On a single-device Pallas
-backend the pass-2 triples stay DEVICE-RESIDENT (DevTriples): pass 3
-gathers them by int32 index planes on device
-(rc_pallas.encode_walk_compact_idx) and the chunk's output bytes
-assemble on device, so the link carries ~4 B per event up and ~1 B
-per payload byte down instead of the host flow's 20+ B per event.
+The pass-2 triples stay on the device (DevTriples).  Pass 3 stacks
+every job's encode events into (B, T) index planes (pow2-bucketed by
+length), gathers the triples by index on the device and walks them in
+chunked calls (the kernel of ops/rc_gpu.py on a GPU, rc_jax's scan on
+the CPU), carrying the coder state across chunks so arbitrarily long
+sections stream through bounded device memory.  Each chunk's output
+bytes are assembled on the device, so the host receives ~1 B per
+payload byte and sends 4 B per event.
 
 Payloads are byte-identical to the native codecs
 (native/fqzqual.cpp:663-762, native/seq.cpp:39-157); the wave driver
@@ -40,17 +39,17 @@ decodes.
 
 from __future__ import annotations
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 
-from . import fqz_model_jax, rc_jax
+from . import backend, fqz_model_jax, rc_gpu, rc_jax
 from .fqz_device_encode import (MID_LEN0, MID_SEL, build_stream,
                                 prepare_fqz)
 from .seq_device_encode import FAM_SEQ, FAM_STATE, build_events
 
 JOB_OFF = 1 << 32        # > any local model id (4^14 seq ctx, 2^16+6 fqz)
-CHUNK_T = 1 << 21        # pass-3 steps per device call (bounds planes)
-CHUNK_T_PALLAS = 1 << 16  # the kernel's event planes are lane-padded
-# (T, R, 128) int32, so its chunks stay smaller
+CHUNK_T = 1 << 20        # pass-3 steps per device call (bounds planes)
 
 # global model families
 F_T4, F_T2, F_N128, F_W256 = 0, 1, 2, 3
@@ -85,10 +84,9 @@ def _prep_job(job):
 class DevTriples:
     """Device-resident pass-2 results: per-bucket (cum, freq, tot)
     jnp arrays plus a host index (`flatpos`) from global event
-    position to flat vector position.  Pass 3 gathers by index ON
-    DEVICE (rc_pallas.encode_walk_compact_idx), so the triples — 12+
-    downloaded and 8 re-uploaded bytes per event in the host flow —
-    never cross the link; only the 4-byte index plane goes up."""
+    position to flat vector position.  Pass 3 gathers by index on the
+    device, so the triples never travel to the host; only the 4-byte
+    index plane goes up."""
 
     def __init__(self, n_total: int):
         self.flatpos = np.full(n_total, -1, np.int64)
@@ -117,163 +115,54 @@ class DevTriples:
         return tuple(vs), idx
 
 
-def _evolve_families(jobvec, fam, mid, sym, metas, n_total,
-                     collect=None):
+def _evolve_families(jobvec, fam, mid, sym, metas, collect):
     """Pass 2 for the whole batch: group rows per family across jobs,
-    evolve, scatter (cum, freq, tot) back to event order (or register
-    device-resident with `collect`)."""
-    import jax.numpy as jnp
-
-    if collect is None:
-        cum = np.zeros(n_total, np.uint32)
-        freq = np.zeros(n_total, np.uint32)
-        tot = np.zeros(n_total, np.uint32)
+    evolve, and register the device-resident (cum, freq, tot) results
+    with `collect` (a DevTriples) by event position."""
     gmid = jobvec * JOB_OFF + mid
-
     for F in (F_T4, F_T2, F_N128, F_W256):
         sel = np.flatnonzero(fam == F)
         if not len(sel):
             continue
         g = fqz_model_jax.group_stream(gmid[sel], sym[sel])
         uniq = g[0]
-        nev = len(sel)
-        if collect is None:
-            out = (np.zeros(nev, np.uint32), np.zeros(nev, np.uint32),
-                   np.zeros(nev, np.uint32))
-        else:
-            out = None
-        kw = dict(out=out, collect=collect,
-                  posmap=sel if collect is not None else None)
+        kw = dict(collect=collect, posmap=sel)
         if F in (F_T4, F_T2):
             def run(sp, ct, r, _n=4 if F == F_T4 else 2):
                 return fqz_model_jax.tiny_evolve(
                     jnp.asarray(sp).astype(jnp.int32),
                     jnp.asarray(ct), nsym=_n)
             fqz_model_jax.evolve_grouped(g, run, **kw)
-        elif F == F_W256:
-            def run(sp, ct, r):
-                mr = np.full(len(ct), 2, np.int32)
-                mr[:len(r)] = 256
-                return fqz_model_jax.evolve(
-                    jnp.asarray(sp).astype(jnp.int32),
-                    jnp.asarray(ct), jnp.asarray(mr),
-                    jnp.int32(16), lanes=256)
-            fqz_model_jax.evolve_grouped(g, run, **kw)
+            continue
+        if F == F_W256:
+            ms_rows = np.full(len(uniq), 256, np.int32)
         else:
             # per-row alphabet: qual models use the job's max_sym+1,
-            # the sel model max_sel+1, the dup model 2.  Rows whose
-            # alphabet exceeds 128 lanes (a wide sel model) take the
-            # 256-lane evolve in a second pass.
+            # the sel model max_sel+1, the dup model 2
             ujob = (uniq // JOB_OFF).astype(np.int64)
             ulm = uniq % JOB_OFF
-            msym = np.array([metas[j][0] if metas[j] else 2
-                             for j in range(len(metas))], np.int32)
-            msel = np.array([metas[j][1] if metas[j] else 2
-                             for j in range(len(metas))], np.int32)
+            msym = np.array([m[0] if m else 2 for m in metas], np.int32)
+            msel = np.array([m[1] if m else 2 for m in metas], np.int32)
             ms_rows = np.where(ulm < MID_LEN0, msym[ujob],
                                np.where(ulm == MID_SEL, msel[ujob],
                                         2)).astype(np.int32)
-
-            def run_w(sp, ct, r, _ms=ms_rows):
-                mr = np.full(len(ct), 2, np.int32)
-                mr[:len(r)] = _ms[r]
-                return fqz_model_jax.evolve(
-                    jnp.asarray(sp).astype(jnp.int32),
-                    jnp.asarray(ct),
-                    jnp.asarray(mr), jnp.int32(16), lanes=256)
-
-            def run(sp, ct, r, _ms=ms_rows):
-                mr = np.full(len(ct), 2, np.int32)
-                mr[:len(r)] = _ms[r]
-                return fqz_model_jax.evolve_128(
-                    jnp.asarray(sp).astype(jnp.int32), ct, mr, 16)
-
-            wide = ms_rows > 128
-            if wide.any():
+        # rows whose alphabet exceeds 128 take the 256-lane evolve
+        wide = ms_rows > 128
+        for lanes, rows in ((256, np.flatnonzero(wide)),
+                            (128, np.flatnonzero(~wide))):
+            if len(rows):
                 fqz_model_jax.evolve_grouped(
-                    g, run_w, rows=np.flatnonzero(wide), **kw)
-            if not wide.all():
-                fqz_model_jax.evolve_grouped(
-                    g, run, rows=np.flatnonzero(~wide), **kw)
-        if collect is None:
-            cum[sel] = out[0]
-            freq[sel] = out[1]
-            tot[sel] = out[2]
-    if collect is not None:
-        return None
-    return cum, freq, tot
+                    g, _evolve_run(ms_rows, lanes), rows=rows, **kw)
 
 
-def rc_walk_batch(streams):
-    """Pass 3: walk many (cum, freq, tot) streams as batched range
-    coders.  Streams bucket by pow2 length (padding stays < 2x) and
-    long buckets walk in CHUNK_T-step device calls with the state
-    carried across chunks.  Returns list of payload bytes."""
-    outs = [b""] * len(streams)
-    buckets: dict[int, list[int]] = {}
-    for i, (c, _f, _t) in enumerate(streams):
-        if len(c) == 0:
-            # empty stream still runs finish_encode: 5 shift_lows from
-            # the initial state
-            z = np.zeros(1, np.uint32)
-            st = (z, np.full(1, 0xFFFFFFFF, np.uint32), z, z, z)
-            outs[i] = rc_jax.finish_events(st)[0]
-            continue
-        buckets.setdefault(fqz_model_jax.pow2(len(c)), []).append(i)
-
-    from . import backend
-
-    for T2, idxs in sorted(buckets.items()):
-        B = len(idxs)
-        B2 = fqz_model_jax.pow2(B)
-        B2 += backend.pad_rows(B2)  # mesh-divisible walk batch
-        cum = np.zeros((B2, T2), np.uint32)
-        freq = np.ones((B2, T2), np.uint32)
-        tot = np.full((B2, T2), 2, np.uint32)
-        active = np.zeros((B2, T2), bool)
-        for r, i in enumerate(idxs):
-            c, f, t = streams[i]
-            n = len(c)
-            cum[r, :n], freq[r, :n], tot[r, :n] = c, f, t
-            active[r, :n] = True
-
-        # the Pallas walk keeps the five coder registers in VMEM for
-        # the whole chunk (the scan pays XLA per-step overheads); the
-        # mesh-sharded path stays on the scan
-        use_pallas = (backend._use_pallas()
-                      and backend.current_mesh() is None)
-        if use_pallas:
-            from . import rc_pallas
-        chunk = CHUNK_T_PALLAS if use_pallas else CHUNK_T
-
-        state = None
-        parts: list[list[bytes]] = [[] for _ in idxs]
-        for t0 in range(0, T2, chunk):
-            t1 = min(t0 + chunk, T2)
-            if use_pallas:
-                # compact path: chunk bytes assemble ON DEVICE, the
-                # link carries ~1 byte per output byte instead of 16
-                # bytes per coded symbol of raw event planes
-                state, by, totals = rc_pallas.encode_walk_compact(
-                    cum[:, t0:t1], freq[:, t0:t1], tot[:, t0:t1],
-                    active=active[:, t0:t1], state0=state)
-                for r, i in enumerate(idxs):
-                    parts[r].append(by[r, :totals[r]].tobytes())
-                continue
-            state, (fl, ca, ff, cy) = rc_jax.encode_scan(
-                backend.shard_rows(cum[:, t0:t1], 1),
-                backend.shard_rows(freq[:, t0:t1], 1),
-                backend.shard_rows(tot[:, t0:t1], 1),
-                active=backend.shard_rows(active[:, t0:t1], 1),
-                state0=state)
-            fl, ca, ff, cy = map(np.asarray, (fl, ca, ff, cy))
-            for r, i in enumerate(idxs):
-                parts[r].append(rc_jax.assemble_stream(
-                    fl[r], ca[r], ff[r], cy[r], b""))
-        tails = rc_jax.finish_events(state)
-        for r, i in enumerate(idxs):
-            outs[i] = b"".join(parts[r]) + tails[r]
-    return outs
+def _evolve_run(ms_rows, lanes: int):
+    """evolve_grouped callback: per-row model sizes from ms_rows (pad
+    rows get 2), evolved on the walk device."""
+    def run(sp, ct, r):
+        mr = np.full(len(ct), 2, np.int32)
+        mr[:len(r)] = ms_rows[r]
+        return fqz_model_jax.evolve_dev(sp, ct, mr, 16, lanes=lanes)
+    return run
 
 
 def _batch_budget_bytes() -> int:
@@ -318,8 +207,6 @@ def encode_adaptive_batch(jobs) -> list[bytes]:
 
 def _encode_adaptive_chunk(jobs) -> list[bytes]:
     preps = [_prep_job(j) for j in jobs]
-    hdrs = [p[0] for p in preps]
-    metas = [p[5] for p in preps]
     n_ev = np.array([len(p[2]) for p in preps], np.int64)
     base = np.concatenate(([0], np.cumsum(n_ev)))
     total = int(base[-1])
@@ -332,78 +219,84 @@ def _encode_adaptive_chunk(jobs) -> list[bytes]:
     sym = np.concatenate([p[3] for p in preps]) if total else \
         np.zeros(0, np.int32)
 
-    from . import backend
-
-    if (backend._use_pallas() and backend.current_mesh() is None
-            and _dev_resident()):
-        # device-resident handoff: pass-2 triples never leave the
-        # device; pass 3 gathers them by index planes
-        collect = DevTriples(total)
-        _evolve_families(jobvec, fam, mid, sym, metas, total,
-                         collect=collect)
-        V, flatpos = collect.vectors()
-        streams_idx = []
-        for j, p in enumerate(preps):
-            sl = slice(base[j], base[j + 1])
-            enc = p[4]
-            streams_idx.append(flatpos[sl][enc])
-        payloads = rc_walk_batch_idx(streams_idx, V)
-        return [hdrs[j] + payloads[j] for j in range(len(jobs))]
-
-    cum, freq, tot = _evolve_families(jobvec, fam, mid, sym, metas,
-                                      total)
-
-    streams = []
-    for j, p in enumerate(preps):
-        sl = slice(base[j], base[j + 1])
-        enc = p[4]
-        streams.append((cum[sl][enc], freq[sl][enc], tot[sl][enc]))
-    payloads = rc_walk_batch(streams)
-    return [hdrs[j] + payloads[j] for j in range(len(jobs))]
+    collect = DevTriples(total)
+    _evolve_families(jobvec, fam, mid, sym, [p[5] for p in preps],
+                     collect)
+    V, flatpos = collect.vectors()
+    streams_idx = [flatpos[base[j]:base[j + 1]][p[4]]
+                   for j, p in enumerate(preps)]
+    payloads = rc_walk_batch_idx(streams_idx, V)
+    return [p[0] + pay for p, pay in zip(preps, payloads)]
 
 
-def _dev_resident() -> bool:
-    import os
+def rc_walk_streams(streams) -> list[bytes]:
+    """Pass 3 for host-side (cum, freq, tot) streams: upload them as
+    one triple vector and walk them like device-resident triples."""
+    import jax.numpy as jnp
 
-    env = os.environ.get("FQZ5_DEV_RESIDENT")
-    if env is not None:
-        return env not in ("0", "false", "")
-    return True
+    lens = [len(c) for c, _f, _t in streams]
+    V = tuple(jnp.asarray(np.concatenate(
+        [np.asarray(st[k], np.int32) for st in streams]
+        + [np.array([dflt], np.int32)]))
+        for k, dflt in ((0, 0), (1, 1), (2, 2)))
+    base = np.concatenate(([0], np.cumsum(lens)))
+    return rc_walk_batch_idx(
+        [np.arange(base[i], base[i + 1]) for i in range(len(streams))], V)
 
 
-def rc_walk_batch_idx(streams_idx, V):
-    """Pass 3 over device-resident triples: streams are INDEX arrays
-    into V; the chunked walk uploads 4 B per event and downloads the
-    compacted chunk bytes (see rc_pallas.encode_walk_compact_idx).
-    Same bucketing/chunking as rc_walk_batch; payload bytes
-    identical."""
-    from . import rc_pallas
+@jax.jit
+def _planes_idx(Vc, Vf, Vt, idx):
+    """Gather (cum, freq, tot) by event index from the device-resident
+    vectors and pack the walk's P0/P1 planes; the last vector entry is
+    the inactive sentinel."""
+    act = idx != Vc.shape[0] - 1
+    return rc_gpu.pack_planes(jnp.take(Vc, idx), jnp.take(Vf, idx),
+                              jnp.take(Vt, idx), act)
 
+
+def rc_walk_batch_idx(streams_idx, V) -> list[bytes]:
+    """Pass 3: walk many streams given as INDEX arrays into the
+    device-resident triples V.  Streams bucket by pow2 length (padding
+    stays < 2x) and long buckets walk in CHUNK_T-step calls with the
+    state carried across chunks.  Returns the payload bytes per
+    stream."""
+    from . import devtimer
+
+    walk = (backend.bound(rc_gpu.walk_events, interpret=backend.INTERPRET)
+            if backend.use_kernel() else rc_jax.walk_events)
     sentinel = int(V[0].shape[0] - 1)
     outs = [b""] * len(streams_idx)
     buckets: dict[int, list[int]] = {}
     for i, si in enumerate(streams_idx):
         if len(si) == 0:
-            z = np.zeros(1, np.uint32)
-            st = (z, np.full(1, 0xFFFFFFFF, np.uint32), z, z, z)
-            outs[i] = rc_jax.finish_events(st)[0]
+            # an empty stream still runs finish_encode: 5 shift_lows
+            # from the initial state
+            outs[i] = rc_jax.finish_events(
+                tuple(rc_gpu.init_state(1).T))[0]
             continue
         buckets.setdefault(fqz_model_jax.pow2(len(si)), []).append(i)
 
     for T2, idxs in sorted(buckets.items()):
-        B2 = fqz_model_jax.pow2(len(idxs))
-        IDX = np.full((B2, T2), sentinel, np.int32)
+        B = len(idxs)
+        B2 = fqz_model_jax.pow2(B)
+        B2 += backend.pad_rows(B2)  # mesh-divisible walk batch
+        chunk = min(T2, CHUNK_T)
+        Tmax = max(len(streams_idx[i]) for i in idxs)
+        IDX = np.full((B2, -(-Tmax // chunk) * chunk), sentinel, np.int32)
         for r, i in enumerate(idxs):
             IDX[r, :len(streams_idx[i])] = streams_idx[i]
-        state = None
+        state = rc_gpu.init_state(B2)
         parts: list[list[bytes]] = [[] for _ in idxs]
-        for t0 in range(0, T2, CHUNK_T_PALLAS):
-            t1 = min(t0 + CHUNK_T_PALLAS, T2)
-            state, by, totals = rc_pallas.encode_walk_compact_idx(
-                V, IDX[:, t0:t1], state0=state)
-            for r, i in enumerate(idxs):
+        for t0 in range(0, IDX.shape[1], chunk):
+            P0, P1 = _planes_idx(*V, devtimer.put(IDX[:, t0:t0 + chunk]))
+            ev, state = backend.row_call(walk, P0, P1, state)
+            totals = devtimer.get(rc_gpu.event_totals(*ev))[:B]
+            by = devtimer.get(rc_gpu.compact_events(
+                *ev, outcap=backend._bucket(max(int(totals.max()), 1),
+                                            lo=128))[:B])
+            for r in range(B):
                 parts[r].append(by[r, :totals[r]].tobytes())
-        tails = rc_jax.finish_events(state)
+        tails = rc_jax.finish_events(tuple(np.asarray(state)[:B].T))
         for r, i in enumerate(idxs):
             outs[i] = b"".join(parts[r]) + tails[r]
     return outs

@@ -16,7 +16,7 @@ Pipeline (docs/DEVICE_ADAPTIVE_CODECS.md):
          with the 256/2-symbol overhead models
          (ops/fqz_model_jax.evolve)
   pass 3 un-sort the (cum, freq, tot) triples to stream order and run
-         the batched range-coder walk (ops/rc_jax)
+         the batched range-coder walk (ops/adaptive_batch pass 3)
 
 The result byte-matches the native fqz_compress payload after the
 parameter header (tests/test_fqz_device_encode.py).  Decode stays
@@ -35,7 +35,7 @@ import ctypes
 
 import numpy as np
 
-from . import fqz_ctx_jax, fqz_model_jax, rc_jax
+from . import fqz_ctx_jax, fqz_model_jax
 
 K_G_MULTI_PARAM = 1   # native/fqzqual.cpp:29
 K_G_HAVE_STAB = 2
@@ -44,29 +44,6 @@ K_G_HAVE_STAB = 2
 MID_LEN0 = 1 << 16
 MID_SEL = MID_LEN0 + 4
 MID_DUP = MID_SEL + 1
-
-
-def _rc_scan_padded(cum, freq, tot):
-    """Pass-3 walk with the symbol count padded to a power of two so
-    the scan compiles once per bucket (inactive tail steps are
-    masked; tot=2/freq=1 keeps the divide well-defined)."""
-    n = len(cum)
-    n2 = fqz_model_jax.pow2(n)
-    if n2 != n:
-        pad = n2 - n
-        cum = np.pad(cum, (0, pad))
-        freq = np.pad(freq, (0, pad), constant_values=1)
-        tot = np.pad(tot, (0, pad), constant_values=2)
-    active = np.zeros((1, n2), bool)
-    active[0, :n] = True
-    from fqzcomp5_tpu.ops import backend
-    if backend._use_pallas() and backend.current_mesh() is None:
-        from fqzcomp5_tpu.ops import rc_pallas
-
-        return rc_pallas.encode_walk(cum[None, :], freq[None, :],
-                                     tot[None, :], active=active)
-    return rc_jax.encode_scan(cum[None, :], freq[None, :],
-                              tot[None, :], active=active)
 
 
 def _dup_flags(quals: np.ndarray, lens: np.ndarray) -> np.ndarray:
@@ -200,6 +177,8 @@ def encode_payload(qual: bytes, lens, sels, P,
                    seq: bytes | None = None) -> bytes:
     """Device range-coder payload for one fqz block (everything after
     the native header: put_uv(in_size) + store_parameters)."""
+    from .adaptive_batch import _evolve_run, rc_walk_streams
+
     mids, syms, _ = build_stream(qual, lens, sels, P, seq=seq)
 
     # per-model alphabet sizes (Models::init, fqzqual.cpp:185-192)
@@ -209,8 +188,6 @@ def encode_payload(qual: bytes, lens, sels, P,
                   np.where(uniq < MID_SEL, 256,
                            np.where(uniq == MID_SEL, P.max_sel + 1,
                                     2))).astype(np.int32)
-    import jax.numpy as jnp
-
     n = len(mids)
     out = (np.zeros(n, np.uint32), np.zeros(n, np.uint32),
            np.zeros(n, np.uint32))
@@ -221,24 +198,10 @@ def encode_payload(qual: bytes, lens, sels, P,
         if not rows.any():
             continue
 
-        def run(sp, ct, r, _wide=wide):
-            mr = np.full(len(ct), 2, np.int32)
-            mr[:len(r)] = ms[r]
-            spw = jnp.asarray(sp).astype(jnp.int32)
-            if not _wide:
-                return fqz_model_jax.evolve_128(spw, ct, mr, 16)
-            return fqz_model_jax.evolve(
-                spw, jnp.asarray(ct), jnp.asarray(mr),
-                jnp.int32(16), lanes=256)
-
-        fqz_model_jax.evolve_grouped(g, run,
-                                     rows=np.flatnonzero(rows), out=out)
-    cum, freq, tot = out
-
-    state, (fl, ca, ff, cy) = _rc_scan_padded(cum, freq, tot)
-    tails = rc_jax.finish_events(state)
-    fl, ca, ff, cy = map(np.asarray, (fl, ca, ff, cy))
-    return rc_jax.assemble_stream(fl[0], ca[0], ff[0], cy[0], tails[0])
+        fqz_model_jax.evolve_grouped(
+            g, _evolve_run(ms, 256 if wide else 128),
+            rows=np.flatnonzero(rows), out=out)
+    return rc_walk_streams([out])[0]
 
 
 def prepare_fqz(qual: bytes, lens, flags, seq_buf: bytes | None,

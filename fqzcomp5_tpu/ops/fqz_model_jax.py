@@ -146,36 +146,27 @@ def pow2(n: int) -> int:
     return 1 << max(int(n) - 1, 0).bit_length()
 
 
-def evolve_128(symplane, counts, max_sym, step_inc: int = 16):
-    """128-lane evolve with backend dispatch: the Pallas walk on a
-    real TPU (big buckets), the lax.scan formulation elsewhere
-    (CPU tests, meshes, small buckets).  Bit-identical either way
-    (tests/test_model_pallas.py)."""
-    import jax.numpy as jnp
+def _evolve_rows(symplane, counts, max_sym, *, step_inc: int,
+                 lanes: int):
+    return evolve(symplane.astype(jnp.int32), counts, max_sym,
+                  jnp.int32(step_inc), lanes=lanes)
 
-    from fqzcomp5_tpu.ops import backend
 
-    C, T = symplane.shape
-    if (backend._use_pallas() and backend.current_mesh() is None
-            and T >= 128):
-        from fqzcomp5_tpu.ops import model_pallas
+def evolve_dev(symplane, counts, max_sym, step_inc: int = 16,
+               lanes: int = 128):
+    """evolve on the walk device: the kernel of ops/model_gpu.py on a
+    GPU, the scan above elsewhere (bit-identical, tests/
+    test_model_gpu.py).  max_sym: (C,) per-row model sizes.  Context
+    rows shard over an installed mesh."""
+    from fqzcomp5_tpu.ops import backend, model_gpu
 
-        sp = np.asarray(symplane)
-        Cp = -(-C // model_pallas.C_BLK) * model_pallas.C_BLK
-        Tp = -(-T // 128) * 128
-        spp = np.zeros((Cp, Tp), np.int32)
-        spp[:C, :T] = sp
-        ctp = np.zeros((Cp, 1), np.int32)
-        ctp[:C, 0] = np.asarray(counts)[:C]
-        msp = np.full((Cp, 1), 2, np.int32)
-        msp[:C, 0] = np.broadcast_to(np.asarray(max_sym), (C,))
-        cum, freq, tot = model_pallas.evolve_walk(
-            jnp.asarray(spp), jnp.asarray(ctp), jnp.asarray(msp),
-            int(step_inc))
-        return cum[:C, :T], freq[:C, :T], tot[:C, :T]
-    return evolve(jnp.asarray(symplane), jnp.asarray(counts),
-                  jnp.asarray(max_sym), jnp.int32(step_inc),
-                  lanes=128)
+    if backend.use_kernel():
+        fn = backend.bound(model_gpu.evolve_walk, step_inc=step_inc,
+                           lanes=lanes, interpret=backend.INTERPRET)
+    else:
+        fn = backend.bound(_evolve_rows, step_inc=step_inc, lanes=lanes)
+    return backend.row_call(fn, symplane, counts,
+                            np.asarray(max_sym, np.int32))
 
 
 def group_stream(ctx: np.ndarray, qm: np.ndarray):

@@ -1,11 +1,12 @@
-"""Batched 32-lane rANS cores as JAX computations.
+"""Batched 32-lane rANS cores as JAX computations: the plain `lax`
+references of the walk kernels in ops/rans_gpu.py.
 
-TPU-native formulation of the reference's 32x16 SIMD rANS
-(htscodecs/rANS_static32x16pr*.c): the 32 interleaved states map onto
-VPU lanes, and **independent streams batch along the sublane axis** so
-a (B, 32) state matrix fills the vector unit.  The per-symbol
-dependency chain runs as a `lax.scan`; all per-step work (table
-gathers, renormalisation prefix-sums, word gathers) is vectorised.
+Formulation of the reference's 32x16 SIMD rANS
+(htscodecs/rANS_static32x16pr*.c): the 32 interleaved states are the
+minor axis, and **independent streams batch along the leading axis**
+as a (B, 32) state matrix.  The per-symbol dependency chain runs as a
+`lax.scan`; all per-step work (table gathers, renormalisation
+prefix-sums, word gathers) is vectorised.
 
 Bitstreams are identical to the native/reference codec: table
 construction and stream framing stay on the host (tiny), these kernels
@@ -280,60 +281,3 @@ def decode_scan_o1(words, R0, s3, T: int, shift: int, t_real=None):
     (Rf, ptrf, _, _), syms = jax.lax.scan(step, (R0, ptr0, last0, t0),
                                           None, length=T)
     return jnp.swapaxes(syms, 0, 1), Rf, ptrf
-
-
-# ---------------------------------------------------------------------
-# Fast encode: hoist table lookups out of the scan.
-#
-# Encoder table values depend only on the (static) symbol plane, not on
-# the rANS state, so the per-symbol gathers can run once, before the
-# scan, as a single one-hot contraction on the MXU.  u32 table entries
-# split into four u8 planes (exact in bf16) and reassemble in int32.
-# The scan body is then pure VPU arithmetic — no gathers at all.
-# XLA's generic gather lowers to a scalar loop on TPU (~100us/step);
-# this formulation replaces it entirely.
-
-def _onehot_lookup_u32(idx, tables_u32):
-    """idx: (..., ) int32 in [0, S); tables_u32: (B, S, K) uint32.
-    Returns (..., K) uint32 gathered per leading batch dim via one-hot
-    matmuls that are exact in bf16/f32."""
-    B, S, K = tables_u32.shape
-    planes = jnp.stack(
-        [(tables_u32 >> (8 * p)) & 0xFF for p in range(4)],
-        axis=-1).reshape(B, S, K * 4).astype(jnp.bfloat16)
-    flat_idx = idx.reshape(B, -1)
-    oh = jax.nn.one_hot(flat_idx, S, dtype=jnp.bfloat16)
-    vals = jnp.einsum("bns,bsk->bnk", oh, planes,
-                      preferred_element_type=jnp.float32)
-    vals = vals.astype(jnp.uint32).reshape(B, -1, K, 4)
-    out = (vals[..., 0] | (vals[..., 1] << 8) | (vals[..., 2] << 16)
-           | (vals[..., 3] << 24))
-    return out.reshape(idx.shape + (K,))
-
-
-@jax.jit
-def encode_scan_fast(flat, tables_u32, R0=None):
-    """Gather-free encode walk.
-
-    flat: (B, T, N) table indices; tables_u32: (B, S, 5) with columns
-    (x_max, rcp, rcp_shift, bias, cmpl).  Returns (final states,
-    words (B,T,N), mask (B,T,N)) identical to encode_scan_flat."""
-    B, T, _ = flat.shape
-    vals = _onehot_lookup_u32(flat.astype(jnp.int32), tables_u32)
-    # (B, T, N, 5) -> scan over T
-    vals = jnp.moveaxis(vals, 1, 0)  # (T, B, N, 5)
-
-    def step(R, v):
-        xm = v[..., 0]
-        emit = R > xm
-        word = R & 0xFFFF
-        R = jnp.where(emit, R >> 16, R)
-        q = _mulhi32(R, v[..., 1]) >> v[..., 2]
-        R = R + v[..., 3] + q * v[..., 4]
-        return R, (word, emit)
-
-    if R0 is None:
-        R0 = jnp.full((B, N), RANS_L, jnp.uint32)
-    Rf, (words, mask) = jax.lax.scan(step, R0.astype(jnp.uint32), vals,
-                                     reverse=True)
-    return Rf, jnp.swapaxes(words, 0, 1), jnp.swapaxes(mask, 0, 1)

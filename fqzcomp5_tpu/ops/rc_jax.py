@@ -12,7 +12,7 @@ Device formulation notes:
 - the coder state is pure u32 (low, range, cache, ff_num, carry): no
   64-bit types needed;
 - `range /= tot` is the only division.  tot < 2^16 for every model in
-  the family, so a base-256 schoolbook division is exact on the VPU:
+  the family, so a base-256 schoolbook division is exact in f32:
   each digit's dividend is < 256 * tot < 2^24 (exact in f32) and each
   quotient digit < 256, with a +-1 integer correction per digit;
 - renormalisation runs at most twice per symbol (range >= 2^8 after
@@ -136,6 +136,22 @@ def encode_scan(cum, freq, tot, active=None, state0=None):
     statef, (flush, cache, ff, carry) = jax.lax.scan(step, state0, xs)
     return statef, (jnp.swapaxes(flush, 0, 1), jnp.swapaxes(cache, 0, 1),
                     jnp.swapaxes(ff, 0, 1), jnp.swapaxes(carry, 0, 1))
+
+
+@jax.jit
+def walk_events(P0, P1, state):
+    """encode_scan behind the packed-plane interface of the pass-3
+    kernel (ops/rc_gpu.walk_events): (B, T) planes P0 = cum << 16 |
+    freq, P1 = active << 16 | tot and state (B, 5) in; (ff0, ev0, ff1,
+    ev1) (B, T) event planes and the final (B, 5) state out."""
+    act = (P1 >> 16) != 0
+    st, (fl, ca, ff, cy) = encode_scan(
+        P0 >> 16, P0 & 0xFFFF, P1 & 0xFFFF, active=act,
+        state0=tuple(state[:, k].astype(jnp.uint32) for k in range(5)))
+    ev = [(fl[..., k].astype(jnp.uint32) << 16)
+          | ((cy[..., k] & 0xFF) << 8) | (ca[..., k] & 0xFF)
+          for k in range(2)]
+    return (ff[..., 0], ev[0], ff[..., 1], ev[1]), jnp.stack(st, axis=1)
 
 
 def finish_events(state):

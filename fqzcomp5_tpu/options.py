@@ -39,7 +39,7 @@ class Options:
     inspect_only: int = 0
     verify_crc: int = 1
     paired_mode: int = 0
-    # TPU-framework extensions (not part of the reference CLI)
+    # extensions (not part of the reference CLI)
     engine: str = "auto"  # auto | host | tpu
 
     def apply_preset(self, level: int) -> None:

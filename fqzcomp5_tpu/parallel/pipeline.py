@@ -2,7 +2,7 @@
 
 The reference scales with a thread pool over independent 10MB-1GB
 blocks (thread_pool.c; adaptive models reset per block, so parallelism
-is lossless).  The TPU-native analog (SURVEY.md section 5):
+is lossless).  The device analog (SURVEY.md section 5):
 
 - "dp" axis: blocks shard across chips/hosts.  Each device runs the
   rANS state-walk for its blocks; per-block compressed payloads and
@@ -10,8 +10,8 @@ is lossless).  The TPU-native analog (SURVEY.md section 5):
 - "sp" axis: within a block, the STRIPE transform splits byte-position
   residue classes into independent streams; those sub-streams shard
   across a second mesh axis (the sequence-parallel analog).
-- the 32 interleaved rANS states are the intra-chip vector axis (VPU
-  lanes), mirroring the reference's SIMD registers.
+- the 32 interleaved rANS states are the intra-device vector axis
+  (the lanes of a warp), mirroring the reference's SIMD registers.
 
 Because every stream is independent, N-chip output is byte-identical
 to 1-chip output; scaling efficiency is pure throughput.

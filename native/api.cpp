@@ -40,19 +40,6 @@ int64_t fqz5_rans_compress(const uint8_t* in, uint32_t in_size, int order,
     return n < 0 ? -1 : n;
 }
 
-// Raw 32x16 core stream without framing/CAT-fallback (device-engine
-// host path for wide-table streams).
-int64_t fqz5_rans_core_encode(const uint8_t* in, uint32_t in_size,
-                              int order01, uint8_t* out,
-                              uint32_t out_cap) {
-    std::vector<uint8_t> v;
-    if (!fqz5::rans_core_encode32(in, in_size, order01, v))
-        return -1;
-    if (v.size() > out_cap) return -1;
-    memcpy(out, v.data(), v.size());
-    return int64_t(v.size());
-}
-
 int64_t fqz5_rans_uncompress(const uint8_t* in, uint32_t in_size,
                              uint8_t* out, uint32_t out_cap,
                              uint32_t out_hint, int know_size) {

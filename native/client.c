@@ -82,9 +82,8 @@ static void fallback(int argc, char **argv) {
     char **nv = calloc((size_t)nargs + 4, sizeof(char *));
     if (!nv) _exit(112);
     nv[0] = "python3";
-    nv[1] = "-S";
-    nv[2] = main_py;
-    for (i = 1; i < nargs; i++) nv[i + 2] = argv[i];
+    nv[1] = main_py;
+    for (i = 1; i < nargs; i++) nv[i + 1] = argv[i];
     execvp("python3", nv);
     perror("fqz5c: exec python3");
     _exit(111);

@@ -1714,11 +1714,6 @@ bool rle_decode(const uint8_t* lit, uint64_t lit_len, const uint8_t* run,
 // ---------------------------------------------------------------------
 // Top-level framing (rans_compress_to_4x16 / rans_uncompress_to_4x16)
 
-bool rans_core_encode32(const uint8_t* in, uint32_t in_size,
-                        int order01, std::vector<uint8_t>& out) {
-    return core_encode(in, in_size, /*simd=*/1, order01, out);
-}
-
 // Result of the plain (non-STRIPE, non-requested-CAT) encode path:
 // header fields plus payload spans, so callers can assemble the framed
 // stream straight into their destination buffer with no staging copy.
@@ -2196,7 +2191,7 @@ bool rans_uncompress(const uint8_t* in, uint32_t in_size,
 // ---------------------------------------------------------------------
 // Table-preparation helpers for the device (JAX/Pallas) engine: the
 // host builds/parses frequency tables with the exact reference logic;
-// the O(n) state walk runs on the TPU.
+// the O(n) state walk runs on the device.
 
 namespace fqz5 {
 extern "C" {

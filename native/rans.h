@@ -27,12 +27,6 @@ std::vector<uint8_t> rans_compress(const uint8_t* in, uint32_t in_size,
 // failure, -2 when out_cap is too small.
 int64_t rans_compress_into(const uint8_t* in, uint32_t in_size, int order,
                            uint8_t* out, size_t out_cap);
-// Raw 32x16 core stream (tables + states + words), NO framing and NO
-// CAT fallback: the device engine uses this to host-encode streams
-// whose tables are too wide for the device plane, keeping the wire
-// bytes identical to the device walk's output.
-bool rans_core_encode32(const uint8_t* in, uint32_t in_size,
-                        int order01, std::vector<uint8_t>& out);
 // out_hint: expected size when known (required for NOSZ payloads).
 bool rans_uncompress(const uint8_t* in, uint32_t in_size,
                      std::vector<uint8_t>& out, uint32_t out_hint = 0,

@@ -81,21 +81,13 @@ def test_chunked_walk(monkeypatch):
 
 
 def test_pass3_pallas_path(monkeypatch):
-    """The batch's pass-3 walk through the Pallas kernel (interpret
-    mode) must reproduce the host payloads byte-for-byte, including
-    across chunk boundaries."""
-    from fqzcomp5_tpu.ops import rc_pallas
+    """The batch's pass-2 and pass-3 walks through the Pallas kernels
+    (interpreter) must reproduce the host payloads byte-for-byte,
+    including across chunk boundaries."""
+    from fqzcomp5_tpu.ops import backend
 
-    for name in ("encode_walk_compact", "encode_walk_compact_idx"):
-        orig = getattr(rc_pallas, name)
-
-        def walk_interp(*a, _orig=orig, **k):
-            k["interpret"] = True
-            return _orig(*a, **k)
-
-        monkeypatch.setattr(rc_pallas, name, walk_interp)
-    monkeypatch.setenv("FQZ5_PALLAS", "1")
-    monkeypatch.setattr(adaptive_batch, "CHUNK_T_PALLAS", 512)
+    monkeypatch.setattr(backend, "INTERPRET", True)
+    monkeypatch.setattr(adaptive_batch, "CHUNK_T", 512)
     jobs = [_fqz_case(31), _seq_case(32), _fqz_case(33, with_seq=True,
                                                    strat=3)]
     want = [_host_encode(j) for j in jobs]

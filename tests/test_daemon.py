@@ -88,6 +88,19 @@ def test_daemon_requests_are_isolated(live_daemon, tmp_path, data_dir):
     assert arc.stat().st_size > 0
 
 
+def test_daemon_declines_device_engine(live_daemon, tmp_path, data_dir):
+    """`-e tpu` jobs are declined (one JAX process per card): the
+    client gets None and runs the job itself."""
+    sample = str(data_dir / "sample.fastq")
+    out = tmp_path / "dev.fqz5"
+    assert daemon.request(live_daemon, ["-e", "tpu", sample,
+                                        str(out)]) is None
+    assert not out.exists()
+    # the daemon keeps serving host jobs
+    assert daemon.request(live_daemon, ["-1", sample,
+                                        str(tmp_path / "h.fqz5")]) == 0
+
+
 def test_client_fallback_without_daemon(tmp_path):
     assert daemon.request(str(tmp_path / "absent.sock"), ["-1"]) is None
     assert daemon.request(str(tmp_path / "absent.sock"), None,

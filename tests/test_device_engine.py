@@ -30,9 +30,9 @@ CASES = {
              + b"\x00"),
     "mult32": bytes(RNG.integers(0, 50, 4096).astype(np.uint8)),
     # single-symbol stream: its freq table normalises to one symbol at
-    # freq 4096, whose f<<20 wraps to 0 in the u32 s3 LUT — the Pallas
-    # freq recovery must repair it (caught live: constant-quality
-    # blocks decoded to the wrong constant through the device path)
+    # freq 4096, whose f<<20 wraps to 0 in the u32 s3 LUT (caught live:
+    # constant-quality blocks once decoded to the wrong constant
+    # through the device path)
     "const": bytes([40]) * 8192,
 }
 

@@ -1,4 +1,5 @@
-"""TPU-engine CLI path (runs on the CPU backend in tests)."""
+"""Device-engine (`-e tpu`) CLI path (runs on the CPU backend in
+tests)."""
 import numpy as np
 import pytest
 

@@ -3,7 +3,7 @@
  *
  * This is test tooling, not part of the framework: it exposes the
  * reference codecs as stdin→stdout filters so the pytest suite can
- * assert our native/TPU codecs produce byte-identical streams.
+ * assert our native/device codecs produce byte-identical streams.
  *
  * Commands (data on stdin, result on stdout):
  *   rans_enc <order>          rans_compress_4x16
